@@ -1,4 +1,4 @@
-// Native IO/compute helpers for the TPU Gaussian-splatting framework.
+// Native IO/compute helpers for the Gaussian-splatting framework.
 //
 // The reference implementation does its data loading in C++
 // (colmap_loader.cpp, tinyply) and its init-time kNN as an O(N^2) CPU loop

@@ -3,7 +3,7 @@ semantics (tiled_shaders.metal:102-385) for parity tests.
 
 This is deliberately slow and literal: per-Gaussian projection with every cull
 branch, per-pixel front-to-back blending with the power window, alpha floor,
-alpha cap, and T-termination — the behavioral spec our TPU renderer is tested
+alpha cap, and T-termination — the behavioral spec our renderer is tested
 against.  Runs in float64 to act as ground truth.
 """
 

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gaussiansplatting_tpu.config import DensityConfig
-from gaussiansplatting_tpu.core import gaussians as G
-from gaussiansplatting_tpu.density import control
-from gaussiansplatting_tpu.train import optimizer
+from gaussiansplatting.config import DensityConfig
+from gaussiansplatting.core import gaussians as G
+from gaussiansplatting.density import control
+from gaussiansplatting.train import optimizer
 
 
 def _mk(rng, n=8, capacity=32, log_scale=-3.0, raw_op=2.0):

@@ -6,8 +6,8 @@ import struct
 import numpy as np
 import pytest
 
-from gaussiansplatting_tpu.config import InitConfig
-from gaussiansplatting_tpu.io import colmap, images, init, ply
+from gaussiansplatting.config import InitConfig
+from gaussiansplatting.io import colmap, images, init, ply
 
 
 # ---------- COLMAP fixtures ----------
@@ -94,7 +94,7 @@ def test_scene_extent(colmap_dir):
     data = colmap.load_colmap(str(colmap_dir))
     extent = colmap.compute_scene_extent(data)
     # two cameras -> extent = 1.1 * half the distance between their centers
-    from gaussiansplatting_tpu.core.camera import camera_world_position
+    from gaussiansplatting.core.camera import camera_world_position
 
     c1 = camera_world_position(data.images[0].quat_wxyz, data.images[0].translation)
     c2 = camera_world_position(data.images[1].quat_wxyz, data.images[1].translation)
@@ -150,7 +150,7 @@ def test_ply_linear_scale_autodetect(tmp_path, rng):
 
 
 def test_cloud_from_params(rng):
-    from gaussiansplatting_tpu.core import gaussians as G
+    from gaussiansplatting.core import gaussians as G
 
     cloud = _random_cloud(rng, n=8)
     params = G.from_arrays(
@@ -177,7 +177,7 @@ def test_init_small_cloud_knn(rng):
     # raw opacity 0, identity quats, DC from color
     np.testing.assert_allclose(cloud.raw_opacities, 0.0)
     np.testing.assert_allclose(cloud.quats[:, 0], 1.0)
-    from gaussiansplatting_tpu.core.transforms import SH_C0
+    from gaussiansplatting.core.transforms import SH_C0
 
     np.testing.assert_allclose(
         cloud.sh[:, 0, :], (colors - 0.5) / SH_C0, rtol=1e-5
@@ -212,6 +212,83 @@ def test_image_roundtrip(tmp_path, rng):
     # resize path
     back2 = images.load_image(p, target_size=(10, 8))
     assert back2.shape == (8, 10, 3)
+
+
+def _png_bytes(rows, width, height, ctype):
+    """Assemble a PNG from already-filtered scanlines (filter byte first)."""
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(rows)))
+            + chunk(b"IEND", b""))
+
+
+def _filter_rows(img, ftype):
+    """Reference PNG filtering (spec section 9), one byte at a time."""
+    h, stride = img.shape[0], img.shape[1] * img.shape[2]
+    bpp = img.shape[2]
+    flat = img.reshape(h, stride).astype(int)
+    out = []
+    prior = [0] * stride
+    for r in range(h):
+        cur = list(flat[r])
+        out.append(ftype)
+        for i in range(stride):
+            a = cur[i - bpp] if i >= bpp else 0
+            b = prior[i]
+            c = prior[i - bpp] if i >= bpp else 0
+            if ftype == 0:
+                pred = 0
+            elif ftype == 1:
+                pred = a
+            elif ftype == 2:
+                pred = b
+            elif ftype == 3:
+                pred = (a + b) // 2
+            else:
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out.append((cur[i] - pred) % 256)
+        prior = cur
+    return out
+
+
+@pytest.mark.parametrize("ftype", [0, 1, 2, 3, 4],
+                         ids=["none", "sub", "up", "average", "paeth"])
+def test_png_decoder_reads_each_filter_type(rng, ftype):
+    img = rng.integers(0, 256, (6, 11, 3), dtype=np.uint8)
+    data = _png_bytes(_filter_rows(img, ftype), 11, 6, 2)
+    np.testing.assert_array_equal(images.decode_png(data), img)
+
+
+@pytest.mark.parametrize("width", [1, 7, 33])
+@pytest.mark.parametrize("channels", [3, 4], ids=["rgb", "rgba"])
+def test_png_encode_decode_roundtrip(tmp_path, rng, channels, width):
+    img = rng.integers(0, 256, (5, width, channels), dtype=np.uint8)
+    data = images.encode_png(img)
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    np.testing.assert_array_equal(images.decode_png(data), img)
+    # load_image drops alpha and scales to [0, 1]
+    p = tmp_path / "t.png"
+    p.write_bytes(data)
+    np.testing.assert_allclose(images.load_image(str(p)),
+                               img[..., :3] / 255.0, atol=1e-7)
+
+
+def test_non_png_without_pillow_names_pil(tmp_path, monkeypatch):
+    import sys
+
+    p = tmp_path / "view.jpg"
+    p.write_bytes(b"\xff\xd8\xff\xe0 not decoded natively")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="PIL"):
+        images.load_image(str(p))
 
 
 def test_ppm(tmp_path):
@@ -263,7 +340,7 @@ def test_ply_official_3dgs_deg3_layout(tmp_path, rng):
     path = tmp_path / "official.ply"
     path.write_bytes(header.encode() + b"".join(rows))
 
-    from gaussiansplatting_tpu.io.ply import load_gaussian_ply
+    from gaussiansplatting.io.ply import load_gaussian_ply
 
     cloud = load_gaussian_ply(str(path))
     assert cloud.sh.shape == (n, 4, 3)
@@ -275,11 +352,12 @@ def test_ply_official_3dgs_deg3_layout(tmp_path, rng):
 
 def test_native_lib_matches_python(tmp_path, rng):
     """The C++ points parser and grid kNN agree with the pure-Python path
-    (native/gs_io.cpp; skipped when libgsio.so is absent)."""
-    from gaussiansplatting_tpu.io import native
+    (native/gs_io.cpp, built at first use; skipped only on a host with no
+    C++ compiler)."""
+    from gaussiansplatting.io import native
 
     if native.get_lib() is None:
-        pytest.skip("native library not built")
+        pytest.skip("no C++ compiler to build native/gs_io.cpp")
 
     pts = []
     coords = rng.uniform(-2, 2, (60, 3))
@@ -288,7 +366,7 @@ def test_native_lib_matches_python(tmp_path, rng):
     path = str(tmp_path / "points3D.bin")
     write_points_bin(path, pts)
 
-    from gaussiansplatting_tpu.io import colmap as colmap_mod
+    from gaussiansplatting.io import colmap as colmap_mod
 
     n_pos, n_col, n_err = native.load_points_bin(path)
     p_pos, p_col, p_err = colmap_mod.load_points_bin(path)
@@ -296,7 +374,7 @@ def test_native_lib_matches_python(tmp_path, rng):
     np.testing.assert_allclose(n_col, p_col, atol=1e-6)
     np.testing.assert_allclose(n_err, p_err, atol=1e-6)
 
-    from gaussiansplatting_tpu.io.init import knn_mean_distances
+    from gaussiansplatting.io.init import knn_mean_distances
 
     nd = native.knn_mean_dist(np.asarray(coords, np.float32), k=3)
     pd = knn_mean_distances(np.asarray(coords, np.float32), k=3)
@@ -305,7 +383,7 @@ def test_native_lib_matches_python(tmp_path, rng):
 
 def test_ply_malformed_inputs(tmp_path):
     """Malformed PLYs fail with clear errors, not crashes or garbage."""
-    from gaussiansplatting_tpu.io.ply import load_gaussian_ply
+    from gaussiansplatting.io.ply import load_gaussian_ply
 
     cases = {
         "not_ply.ply": b"solid nope\n",
@@ -326,8 +404,8 @@ def test_ply_malformed_inputs(tmp_path):
 def test_ply_truncated_body(tmp_path, rng):
     """A body shorter than the header promises loads the complete rows only
     (or raises) — never reads out of bounds."""
-    from gaussiansplatting_tpu.io.ply import load_gaussian_ply
-    from gaussiansplatting_tpu.io.ply import export_gaussian_ply, GaussianCloud
+    from gaussiansplatting.io.ply import load_gaussian_ply
+    from gaussiansplatting.io.ply import export_gaussian_ply, GaussianCloud
 
     cloud = _random_cloud(rng, n=8)
     path = str(tmp_path / "full.ply")

@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gaussiansplatting_tpu.config import LossConfig
-from gaussiansplatting_tpu.ops.losses import l1_per_pixel, photometric_loss, psnr
-from gaussiansplatting_tpu.ops.ssim import dssim_map
+from gaussiansplatting.config import LossConfig
+from gaussiansplatting.ops.losses import l1_per_pixel, photometric_loss, psnr
+from gaussiansplatting.ops.ssim import dssim_map
 
 
 def _ssim_oracle(x, y, window=11, sigma=1.5, c1=0.01**2, c2=0.03**2):

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gaussiansplatting_tpu.config import OptimConfig
-from gaussiansplatting_tpu.core import gaussians as G
-from gaussiansplatting_tpu.train import optimizer
-from gaussiansplatting_tpu.train.optimizer import LearningRates
+from gaussiansplatting.config import OptimConfig
+from gaussiansplatting.core import gaussians as G
+from gaussiansplatting.train import optimizer
+from gaussiansplatting.train.optimizer import LearningRates
 
 
 def _mk_params(rng, n=8):

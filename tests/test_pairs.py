@@ -12,10 +12,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gaussiansplatting_tpu.config import RasterConfig
-from gaussiansplatting_tpu.core import gaussians as G
-from gaussiansplatting_tpu.ops import pairs as pairs_mod
-from gaussiansplatting_tpu.ops import projection as proj_mod
+from gaussiansplatting.config import RasterConfig
+from gaussiansplatting.core import gaussians as G
+from gaussiansplatting.ops import pairs as pairs_mod
+from gaussiansplatting.ops import projection as proj_mod
 
 from conftest import make_camera_for_scene, make_scene
 
@@ -195,8 +195,8 @@ def test_impact_overflow_drop_keeps_highest_impact(rng):
 
 @pytest.mark.slow
 def test_impact_drop_renders_and_differentiates(rng):
-    """The impact drop composes with the full windowed render + VJP."""
-    from gaussiansplatting_tpu.ops.rasterize import render
+    """The impact drop composes with the full render + VJP."""
+    from gaussiansplatting.ops.rasterize import render
     from conftest import make_camera_for_scene
 
     means, log_scales, quats, raw_op, sh_dc = make_scene(rng, n=64, spread=0.7)
@@ -204,7 +204,7 @@ def test_impact_drop_renders_and_differentiates(rng):
     sh[:, 0, :] = sh_dc
     params = G.from_arrays(means, log_scales, quats, raw_op, sh)
     cam = make_camera_for_scene(width=64, height=48)
-    cfg = RasterConfig(pair_capacity=64, pair_block=16, blend_impl="pallas",
+    cfg = RasterConfig(pair_capacity=64, pair_block=16, blend_impl="pallas_interpret",
                        overflow_drop="impact")
 
     def loss(p):

@@ -1,21 +1,29 @@
-"""Pallas block-blend kernels vs the XLA reference path (interpret mode on
-CPU; the same comparison runs compiled on real TPU via bench/verify flows).
+"""Pallas-Triton block-blend kernels vs the XLA reference path.
+
+On the CPU the kernels run in the Pallas interpreter (interpret=True, the
+only place it is used); the ``gpu``-marked cases compile them for the card
+and run there (chip_smoke.py phase (b) runs them).
 
 Locks in: identical forward images, identical gradients for all five
-parameter groups, and the hand-derived backward against jax.grad of the XLA
-blend (SURVEY.md §7.1: custom VJP with transmittance replay)."""
+parameter groups, and the hand-derived replay backward against jax.grad of
+the XLA blend (rasterize._block_blend), including the straight-through
+gradient of the alpha cap and the dispatch rules of blend_impl."""
 
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 
-from gaussiansplatting_tpu.config import RasterConfig
-from gaussiansplatting_tpu.core import gaussians as G
-from gaussiansplatting_tpu.ops.rasterize import render
-from gaussiansplatting_tpu.ops.pallas_blend import block_blend_cols
+from gaussiansplatting.config import RasterConfig
+from gaussiansplatting.core import gaussians as G
+from gaussiansplatting.ops import rasterize
+from gaussiansplatting.ops.rasterize import render
+from gaussiansplatting.ops.pallas_blend import block_blend_cols
 
 from conftest import make_camera_for_scene, make_scene
+
+CONSTS = (16, -4.5, 0.99, 1.0 / 255.0)
+NAMES = ("mux", "muy", "ca", "cb", "cc", "op", "cr", "cg", "cbl")
 
 
 def _params(rng, n=48):
@@ -25,12 +33,95 @@ def _params(rng, n=48):
     return G.from_arrays(means, log_scales, quats, raw_op, sh)
 
 
-def _cfgs():
+def _cfgs(kernel="pallas_interpret"):
     kw = dict(pair_capacity=2048, pair_block=16)
     return (
         RasterConfig(**kw, blend_impl="xla"),
-        RasterConfig(**kw, blend_impl="pallas"),
+        RasterConfig(**kw, blend_impl=kernel),
     )
+
+
+def _cols(rng, nb, b, scene, cap_hit=False):
+    """Nine random [nb, b] pair columns.  "sparse": small splats scattered
+    over the tile (most pixels see few pairs); "dense": wide splats piled on
+    the tile center (deep overlap, T driven far down).  The last three
+    slots of every block are padding (op = 0), as the pair layout leaves
+    them."""
+    def arr(lo, hi):
+        return rng.uniform(lo, hi, (nb, b)).astype(np.float32)
+
+    if scene == "sparse":
+        mux, muy = arr(-9.0, 9.0), arr(-9.0, 9.0)
+        ca, cc = arr(0.2, 1.5), arr(0.2, 1.5)
+    else:
+        mux, muy = arr(-2.0, 2.0), arr(-2.0, 2.0)
+        ca, cc = arr(0.01, 0.08), arr(0.01, 0.08)
+    cb = arr(-0.5, 0.5) * np.sqrt(ca * cc)      # positive definite conic
+    op = arr(0.05, 0.95)
+    if cap_hit:
+        op[:, ::2] = rng.uniform(1.0, 1.5, op[:, ::2].shape)  # alpha > 0.99
+    op[:, -3:] = 0.0
+    cr, cg, cbl = arr(0, 1), arr(0, 1), arr(0, 1)
+    return tuple(
+        jnp.asarray(c) for c in (mux, muy, ca, cb, cc, op, cr, cg, cbl)
+    )
+
+
+def _xla_blend(cols, consts=CONSTS):
+    """The XLA path's per-block blend on the same nine columns, laid out
+    like the kernel's output: [NB, 4, P2]."""
+    ts = consts[0]
+    mux, muy, ca, cb, cc, op, cr, cg, cbl = cols
+    cfg = RasterConfig(tile_size=ts, power_floor=consts[1],
+                       alpha_cap=consts[2], alpha_floor=consts[3])
+    c_b, s_b = rasterize._block_blend(
+        jnp.stack([mux, muy], -1), jnp.stack([ca, cb, cc], -1), op,
+        jnp.stack([cr, cg, cbl], -1), op > 0.0,
+        rasterize._pixel_features(ts), cfg,
+    )
+    return jnp.concatenate([c_b.transpose(0, 2, 1), s_b[:, None, :]], axis=1)
+
+
+@pytest.mark.parametrize("scene", ["sparse", "dense"])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_kernel_forward_matches_block_blend(rng, block, scene):
+    cols = _cols(rng, 6, block, scene)
+    out = block_blend_cols(*cols, CONSTS, True)
+    ref = _xla_blend(cols)
+    assert out.shape == (6, 4, 256)
+    assert float(jnp.max(out[:, :3])) > 0.05          # blend not all-dead
+    # colors: f32 sums in another order, and the sequential T product
+    # against the log-space exp(cumsum)
+    np.testing.assert_allclose(np.asarray(out[:, :3]), np.asarray(ref[:, :3]),
+                               atol=2e-5)
+    # S = sum log(1 - alpha): an ulp of alpha near the 0.99 cap moves
+    # log(1 - alpha) by ~100 ulps, and S reaches ~-100 under deep overlap
+    np.testing.assert_allclose(np.asarray(out[:, 3]), np.asarray(ref[:, 3]),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("cap_hit", [False, True], ids=["no_cap", "cap_hit"])
+@pytest.mark.parametrize("block", [16, 128])
+def test_kernel_vjp_matches_autodiff(rng, block, cap_hit):
+    """The hand-derived replay backward against jax.grad of the XLA blend,
+    for all nine columns.  With cap_hit, every other Gaussian's raw alpha
+    exceeds 0.99 near its center: both sides pass the cap's gradient
+    straight through."""
+    cols = _cols(rng, 4, block, "dense", cap_hit=cap_hit)
+    assert bool((np.asarray(cols[5]) > CONSTS[2]).any()) == cap_hit
+    g = jnp.asarray(rng.normal(size=(4, 4, 256)).astype(np.float32))
+    grads_k = jax.grad(
+        lambda *cs: jnp.sum(block_blend_cols(*cs, CONSTS, True) * g),
+        argnums=tuple(range(9)),
+    )(*cols)
+    grads_r = jax.grad(
+        lambda *cs: jnp.sum(_xla_blend(cs) * g), argnums=tuple(range(9))
+    )(*cols)
+    for name, gk, gr in zip(NAMES, grads_k, grads_r):
+        gk, gr = np.asarray(gk), np.asarray(gr)
+        assert np.isfinite(gk).all(), name
+        rel = np.abs(gk - gr).max() / (np.abs(gr).max() + 1e-12)
+        assert rel < 1e-4, (name, rel)
 
 
 def test_forward_image_matches_xla(rng):
@@ -63,269 +154,97 @@ def test_gradients_match_xla(rng):
         assert rel < 1e-4, f"{f}: rel diff {rel}"
 
 
-def _ref_blend_cols(cols, consts):
-    """Independent pure-XLA re-implementation of the column-kernel contract
-    (autodiffed by JAX; the cap never binds in these tests so the min()
-    subgradient matches the kernel's pass-through convention)."""
-    from gaussiansplatting_tpu.ops.pallas_blend import _pixel_feats8
-
-    ts, power_floor, alpha_cap, alpha_floor = consts
-    mux, muy, ca, cb, cc, op, cr, cg, cbl = cols
-    feats = _pixel_feats8(ts)                       # [P2, 8]
-    z = jnp.zeros_like(ca)
-    coef = jnp.stack(
-        [
-            -0.5 * ca, -cb, -0.5 * cc,
-            ca * mux + cb * muy,
-            cb * mux + cc * muy,
-            -0.5 * (ca * mux * mux + 2 * cb * mux * muy + cc * muy * muy),
-            z, z,
-        ],
-        axis=1,
-    )                                               # [NB, 8, B]
-    power = jnp.einsum("pf,kfb->kpb", feats, coef)
-    a_raw = op[:, None, :] * jnp.exp(power)
-    mask = (power <= 0.0) & (power >= power_floor) & (a_raw >= alpha_floor)
-    a = jnp.where(mask, jnp.minimum(a_raw, alpha_cap), 0.0)
-    l = jnp.log1p(-a)
-    t = jnp.exp(jnp.cumsum(l, axis=-1) - l)
-    w = a * t                                       # [NB, P2, B]
-    color = jnp.stack([cr, cg, cbl], axis=1)        # [NB, 3, B]
-    c_out = jnp.einsum("kpb,kcb->kcp", w, color)
-    s_out = jnp.sum(l, axis=-1)[:, None, :]
-    return jnp.concatenate([c_out, s_out], axis=1)  # [NB, 4, P2]
-
-
 def test_block_blend_vjp_matches_autodiff(rng):
-    """Direct unit check of the kernel pair on random column data: the
-    hand-derived in-kernel backward (T-replay + coef->mu/conic chain rule)
-    against jax.grad of an independent XLA forward, for every one of the
-    nine column inputs.  (FD checks are unusable here: a perturbation can
-    flip the alpha-floor/power-window masks, a step both implementations
+    """Direct unit check of the kernel pair at tile_size 8 on random column
+    data: forward and all nine column gradients against the XLA blend.
+    (FD checks are unusable here: a perturbation can flip the
+    alpha-floor/power-window masks, a step both implementations
     deliberately treat as constant, matching tiled_shaders.metal:350-356.)"""
     nb, b, ts = 5, 16, 8
+    consts = (ts,) + CONSTS[1:]
 
     def arr(lo, hi):
         return jnp.asarray(rng.uniform(lo, hi, (nb, b)).astype(np.float32))
 
-    mux, muy = arr(-3.0, 3.0), arr(-3.0, 3.0)
-    ca, cc = arr(0.05, 0.4), arr(0.05, 0.4)
-    cb = arr(-0.02, 0.02)            # conic stays positive definite
-    op = arr(0.05, 0.95)
-    cr, cg, cbl = arr(0, 1), arr(0, 1), arr(0, 1)
-    consts = (ts, -4.5, 0.99, 1.0 / 255.0)
-
-    cols = (mux, muy, ca, cb, cc, op, cr, cg, cbl)
-    out = block_blend_cols(*cols, consts)
+    cols = (arr(-3.0, 3.0), arr(-3.0, 3.0), arr(0.05, 0.4), arr(-0.02, 0.02),
+            arr(0.05, 0.4), arr(0.05, 0.95), arr(0, 1), arr(0, 1), arr(0, 1))
+    out = block_blend_cols(*cols, consts, True)
     assert out.shape == (nb, 4, ts * ts)
-    assert np.isfinite(np.asarray(out)).all()
-    assert float(jnp.max(jnp.abs(out[:, :3, :]))) > 0.0  # blend not all-dead
-
-    ref = _ref_blend_cols(cols, consts)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
+    assert float(jnp.max(jnp.abs(out[:, :3, :]))) > 0.0
+    np.testing.assert_allclose(np.asarray(out),
+                               np.asarray(_xla_blend(cols, consts)), atol=2e-5)
 
     g = jnp.asarray(rng.normal(size=out.shape).astype(np.float32))
     grads_k = jax.grad(
-        lambda *cs: jnp.sum(block_blend_cols(*cs, consts) * g),
+        lambda *cs: jnp.sum(block_blend_cols(*cs, consts, True) * g),
         argnums=tuple(range(9)),
     )(*cols)
     grads_r = jax.grad(
-        lambda *cs: jnp.sum(_ref_blend_cols(cs, consts) * g),
+        lambda *cs: jnp.sum(_xla_blend(cs, consts) * g),
         argnums=tuple(range(9)),
     )(*cols)
-    names = ("mux", "muy", "ca", "cb", "cc", "op", "cr", "cg", "cbl")
-    for name, gk, gr in zip(names, grads_k, grads_r):
+    for name, gk, gr in zip(NAMES, grads_k, grads_r):
         a_, b_ = np.asarray(gk), np.asarray(gr)
         rel = np.abs(a_ - b_).max() / (np.abs(b_).max() + 1e-12)
         assert rel < 1e-4, (name, rel)
 
 
-def test_windowed_strip_render_matches_xla(rng):
-    """The windowed path with tile_rows (row0 != 0, the multi-chip strip
-    mode) against the XLA blend: exercises the per-block window offsets and
-    strip-local tile-center math."""
+def test_auto_picks_xla_off_gpu():
+    assert jax.default_backend() != "gpu"
+    assert rasterize._use_kernel("auto") is False
+    assert rasterize._use_kernel("xla") is False
+    assert rasterize._use_kernel("pallas_interpret") is True
+    with pytest.raises(ValueError, match="unknown blend_impl"):
+        rasterize._use_kernel("cuda")
+
+
+def test_kernel_off_gpu_without_interpret_raises(rng):
+    cols = _cols(rng, 2, 16, "sparse")
+    with pytest.raises(ValueError, match="GPU only"):
+        block_blend_cols(*cols, CONSTS)
     params = _params(rng)
-    cam = make_camera_for_scene(width=64, height=64)
-    cfg_x, cfg_p = _cfgs()
-
-    for row0, rows in ((0, 2), (2, 2)):
-        img_x, aux_x = jax.jit(
-            render, static_argnums=(2, 4, 5)
-        )(params, cam, cfg_x, None, 256, (row0, rows))
-        img_p, aux_p = jax.jit(
-            render, static_argnums=(2, 4, 5)
-        )(params, cam, cfg_p, None, 256, (row0, rows))
-        np.testing.assert_allclose(
-            np.asarray(img_x), np.asarray(img_p), atol=2e-5,
-            err_msg=f"strip row0={row0}",
-        )
-        assert int(aux_x.num_pairs) == int(aux_p.num_pairs)
-
-
-@pytest.mark.slow
-def test_windowed_chunked_grid_matches_single_call(rng, monkeypatch):
-    """Past _MAX_CALL_BLOCKS the windowed blend splits into several
-    pallas_calls over block slices (the SMEM scalar-prefetch ceiling at
-    reference-scale pair provisioning, tiled_rasterizer.mm:144).  Forcing a
-    tiny chunk size must reproduce the single-call image and gradients
-    bit-for-bit — the table and absolute source offsets are shared."""
-    from gaussiansplatting_tpu.ops import pallas_blend
-
-    params = _params(rng)
-    cam = make_camera_for_scene(width=64, height=48)
-    _, cfg_p = _cfgs()
-    weights = jnp.asarray(
-        rng.uniform(0.5, 1.0, (48, 64, 3)).astype(np.float32)
-    )
-
-    def loss(p):
-        img, _ = render(p, cam, cfg_p)
-        return jnp.sum(img * weights)
-
-    img1, aux1 = render(params, cam, cfg_p)
-    g1 = jax.grad(loss, allow_int=True)(params)
-    monkeypatch.setenv("GS_MAX_CALL_BLOCKS", "16")  # read per call (r5)
-    img2, aux2 = render(params, cam, cfg_p)
-    assert pallas_blend.LAST_WIN_CALLS >= 2
-    g2 = jax.grad(loss, allow_int=True)(params)
-    np.testing.assert_array_equal(np.asarray(img1), np.asarray(img2))
-    for f in ("means", "log_scales", "quats", "raw_opacities", "sh"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(g1, f)), np.asarray(getattr(g2, f)), err_msg=f
-        )
-
-
-def test_packed_table_has_eight_rows(rng):
-    """bf16 payload packing shrinks the window table to one sublane tile
-    (8 rows), halving every per-block window DMA."""
-    from gaussiansplatting_tpu.ops import pairs as pairs_mod
-    from gaussiansplatting_tpu.ops import projection as proj_mod
-
-    params = _params(rng)
-    cam = make_camera_for_scene(width=64, height=48)
-
-    for dtype, want_rows in (("f32", 16), ("bf16", 8)):
-        cfg = RasterConfig(
-            pair_capacity=2048, pair_block=16, blend_impl="pallas",
-            payload_dtype=dtype,
-        )
-        proj = proj_mod.project(params, cam, cfg)
-        order = jnp.argsort(proj.depth)
-        proj_p = jax.tree_util.tree_map(lambda x: x[order], proj)
-        data = jnp.concatenate(
-            [proj_p.screen_pos, proj_p.conic, proj_p.opacity[:, None],
-             proj_p.color], axis=-1,
-        )
-        tiles_x = proj_mod.num_tiles(cam.width, cfg.tile_size)
-        tiles_y = proj_mod.num_tiles(cam.height, cfg.tile_size)
-        plan = pairs_mod.capacity_plan(
-            proj_p, tiles_x, tiles_y, cfg.pair_capacity, jnp.int32(0)
-        )
-        counts, ccounts, coffsets, ty_lo, span_x, total, _ = plan
-        pcfg = (
-            params.means.shape[0], cfg.pair_capacity, tiles_x, tiles_y,
-            cfg.pair_block, cfg.grad_reduce,
-            pairs_mod._chunk_capacity(cfg.pair_capacity, params.means.shape[0]),
-            True, dtype == "bf16",
-        )
-        table, *_ = pairs_mod.pair_windows_fwd(
-            data, proj_p.depth, jnp.int32(0), counts, ccounts, coffsets,
-            ty_lo, proj_p.tile_min[:, 0], span_x, pcfg,
-        )
-        assert table.shape[0] == want_rows, (dtype, table.shape)
-
-
-def test_chunked_windowed_grid_parity(rng, monkeypatch):
-    """The chunked windowed grid (GS_MAX_CALL_BLOCKS below the block count,
-    the code shape 16M-pair provisioning hits on hardware) crosses >=3
-    pallas_call chunks and matches the unchunked Pallas call: bit-exact
-    image, fp32-noise gradients (XLA re-fuses the reduction tails across
-    differently-chunked programs).  Pallas-vs-XLA parity is covered by
-    test_forward_image_matches_xla / test_gradients_match_xla; the new
-    claim here is the chunk seam (VERDICT r4 item 7: this code shape
-    previously only ran at 1.5M scale on hardware that was never
-    available).  A salt static arg forces fresh jit traces so the
-    call-time GS_MAX_CALL_BLOCKS read takes effect."""
-    import functools
-
-    from gaussiansplatting_tpu.ops import pallas_blend
-
-    params = _params(rng, n=48)
     cam = make_camera_for_scene(width=32, height=32)
-    cfg_p = RasterConfig(pair_capacity=512, pair_block=16,
-                         blend_impl="pallas")
-    weights = jnp.asarray(
-        rng.uniform(0.5, 1.0, (32, 32, 3)).astype(np.float32)
-    )
-
-    def loss(p, cfg):
-        img, _ = render(p, cam, cfg)
-        return jnp.sum(img * weights)
-
-    @functools.partial(jax.jit, static_argnums=(1, 2))
-    def run_img(p, cfg, salt):
-        return render(p, cam, cfg)[0]
-
-    @functools.partial(jax.jit, static_argnums=(1, 2))
-    def run_grad(p, cfg, salt):
-        return jax.grad(loss, allow_int=True)(p, cfg)
-
-    img_whole = np.asarray(run_img(params, cfg_p, 0))
-    g_whole = run_grad(params, cfg_p, 0)
-    assert pallas_blend.LAST_WIN_CALLS == 1
-
-    # force >= 3 chunks (env read at call time; salt=1 forces a retrace)
-    monkeypatch.setenv("GS_MAX_CALL_BLOCKS", "8")
-    img_c = np.asarray(run_img(params, cfg_p, 1))
-    assert pallas_blend.LAST_WIN_CALLS >= 3, (
-        "test scene too small to cross a chunk boundary"
-    )
-    g_c = run_grad(params, cfg_p, 1)
-    assert pallas_blend.LAST_WIN_CALLS >= 3
-
-    # chunk concatenation is the same kernel math in the same order
-    np.testing.assert_array_equal(img_c, img_whole)
-    for f in ("means", "log_scales", "quats", "raw_opacities", "sh"):
-        a = np.asarray(getattr(g_whole, f))
-        b = np.asarray(getattr(g_c, f))
-        rel = np.abs(a - b).max() / (np.abs(a).max() + 1e-12)
-        assert rel < 1e-5, f"{f} vs whole: rel diff {rel}"
+    _, cfg_p = _cfgs(kernel="pallas")
+    with pytest.raises(ValueError, match="GPU only"):
+        jax.jit(render, static_argnums=2)(params, cam, cfg_p)
 
 
-def test_vpu_power_impl_matches_mxu(rng, monkeypatch):
-    """GS_BLEND_POWER=vpu (direct 6-FMA quadratic form + sublane-reduction
-    backward, avoiding the 16x-padded K=8/M=8 MXU issues) is the same math
-    as the default coefficient-matmul path regrouped — image and all
-    parameter gradients agree to fp32 reassociation noise."""
-    import functools
+def test_kernel_rejects_non_power_of_two_block(rng):
+    cols = _cols(rng, 2, 24, "sparse")
+    with pytest.raises(ValueError, match="power-of-two pair_block"):
+        block_blend_cols(*cols, CONSTS, True)
 
-    params = _params(rng, n=64)
-    cam = make_camera_for_scene(width=64, height=48)
-    _, cfg_p = _cfgs()
-    weights = jnp.asarray(
-        rng.uniform(0.5, 1.0, (48, 64, 3)).astype(np.float32)
-    )
 
-    def loss(p, cfg):
-        img, _ = render(p, cam, cfg)
-        return jnp.sum(img * weights)
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap_hit", [False, True], ids=["no_cap", "cap_hit"])
+@pytest.mark.parametrize("block", [32, 128])
+def test_compiled_kernel_matches_xla(rng, block, cap_hit):
+    """The kernels compiled for the card, forward and VJP, against the XLA
+    blend on the same device at full f32 matmul precision."""
+    cols = _cols(rng, 64, block, "dense", cap_hit=cap_hit)
+    with jax.default_matmul_precision("highest"):
+        out = jax.jit(lambda *c: block_blend_cols(*c, CONSTS))(*cols)
+        ref = jax.jit(_xla_blend)(cols)
+        g = jnp.asarray(rng.normal(size=out.shape).astype(np.float32))
+        gk = jax.jit(jax.grad(
+            lambda *cs: jnp.sum(block_blend_cols(*cs, CONSTS) * g),
+            argnums=tuple(range(9))))(*cols)
+        gr = jax.jit(jax.grad(
+            lambda *cs: jnp.sum(_xla_blend(cs) * g),
+            argnums=tuple(range(9))))(*cols)
+    np.testing.assert_allclose(np.asarray(out[:, :3]), np.asarray(ref[:, :3]),
+                               atol=1e-4)
+    for name, a, b in zip(NAMES, gk, gr):
+        a, b = np.asarray(a), np.asarray(b)
+        rel = np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30)
+        assert rel < 1e-3, (name, rel)
 
-    @functools.partial(jax.jit, static_argnums=(1, 2))
-    def run_img(p, cfg, salt):
-        return render(p, cam, cfg)[0]
 
-    @functools.partial(jax.jit, static_argnums=(1, 2))
-    def run_grad(p, cfg, salt):
-        return jax.grad(loss, allow_int=True)(p, cfg)
-
-    img_m = np.asarray(run_img(params, cfg_p, 0))
-    g_m = run_grad(params, cfg_p, 0)
-    monkeypatch.setenv("GS_BLEND_POWER", "vpu")
-    img_v = np.asarray(run_img(params, cfg_p, 1))
-    g_v = run_grad(params, cfg_p, 1)
-
-    np.testing.assert_allclose(img_v, img_m, atol=1e-5)
-    for f in ("means", "log_scales", "quats", "raw_opacities", "sh"):
-        a, b = np.asarray(getattr(g_m, f)), np.asarray(getattr(g_v, f))
-        rel = np.abs(a - b).max() / (np.abs(a).max() + 1e-12)
-        assert rel < 1e-4, f"{f}: rel diff {rel}"
+@pytest.mark.gpu
+def test_compiled_render_matches_xla(rng):
+    params = _params(rng, n=512)
+    cam = make_camera_for_scene(width=128, height=96)
+    cfg_x, cfg_p = _cfgs(kernel="pallas")
+    img_x, _ = jax.jit(render, static_argnums=2)(params, cam, cfg_x)
+    img_p, _ = jax.jit(render, static_argnums=2)(params, cam, cfg_p)
+    np.testing.assert_allclose(np.asarray(img_x), np.asarray(img_p), atol=1e-4)

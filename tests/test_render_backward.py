@@ -10,9 +10,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gaussiansplatting_tpu.config import RasterConfig
-from gaussiansplatting_tpu.core import gaussians as G
-from gaussiansplatting_tpu.ops.rasterize import render
+from gaussiansplatting.config import RasterConfig
+from gaussiansplatting.core import gaussians as G
+from gaussiansplatting.ops.rasterize import render
 
 from conftest import make_camera_for_scene, make_scene
 

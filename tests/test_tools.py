@@ -10,16 +10,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gaussiansplatting_tpu.config import Config, RasterConfig, TrainConfig
-from gaussiansplatting_tpu.core import camera as camera_mod
-from gaussiansplatting_tpu.core import gaussians as G
-from gaussiansplatting_tpu.core.transforms import quat_to_rotmat
-from gaussiansplatting_tpu.ops.rasterize import render
-from gaussiansplatting_tpu.train import checkpoint as ckpt_mod
-from gaussiansplatting_tpu.train import state as state_mod
-from gaussiansplatting_tpu.train import trainer
-from gaussiansplatting_tpu.utils.metrics import MetricsLogger
-from gaussiansplatting_tpu.utils import synthetic
+from gaussiansplatting.config import Config, RasterConfig, TrainConfig
+from gaussiansplatting.core import camera as camera_mod
+from gaussiansplatting.core import gaussians as G
+from gaussiansplatting.core.transforms import quat_to_rotmat
+from gaussiansplatting.ops.rasterize import render
+from gaussiansplatting.train import checkpoint as ckpt_mod
+from gaussiansplatting.train import state as state_mod
+from gaussiansplatting.train import trainer
+from gaussiansplatting.utils.metrics import MetricsLogger
+from gaussiansplatting.utils import synthetic
 
 from conftest import make_camera_for_scene, make_scene
 from test_io import write_cameras_bin, write_images_bin, write_points_bin
@@ -160,7 +160,7 @@ def test_rotmat_quat_roundtrip(rng):
 def tiny_scene_dir(tmp_path, rng):
     """A 2-view synthetic COLMAP scene with images rendered from a known
     Gaussian cloud, so CLI training has signal."""
-    from gaussiansplatting_tpu.io import images as images_mod
+    from gaussiansplatting.io import images as images_mod
 
     sparse = tmp_path / "sparse"
     images = tmp_path / "images"
@@ -189,7 +189,7 @@ def tiny_scene_dir(tmp_path, rng):
         img, _ = jax.jit(render, static_argnums=2)(gt_params, cam, _cfg().raster)
         images_mod.save_png(str(images / name), np.asarray(img))
 
-    from gaussiansplatting_tpu.io import ply as ply_mod
+    from gaussiansplatting.io import ply as ply_mod
 
     ply_mod.export_gaussian_ply(
         str(tmp_path / "gt.ply"), ply_mod.cloud_from_params(gt_params)
@@ -199,8 +199,8 @@ def tiny_scene_dir(tmp_path, rng):
 
 @pytest.mark.slow
 def test_train_cli_end_to_end(tiny_scene_dir, tmp_path):
-    from gaussiansplatting_tpu.tools import train as train_cli
-    from gaussiansplatting_tpu.io import ply as ply_mod
+    from gaussiansplatting.tools import train as train_cli
+    from gaussiansplatting.io import ply as ply_mod
 
     out_ply = str(tmp_path / "out.ply")
     metrics = str(tmp_path / "metrics.jsonl")
@@ -256,8 +256,8 @@ def test_train_cli_end_to_end(tiny_scene_dir, tmp_path):
 
 
 def test_render_cli_orbit(tiny_scene_dir, tmp_path, rng):
-    from gaussiansplatting_tpu.tools import render as render_cli
-    from gaussiansplatting_tpu.io import ply as ply_mod
+    from gaussiansplatting.tools import render as render_cli
+    from gaussiansplatting.io import ply as ply_mod
 
     cloud = ply_mod.cloud_from_params(_params(rng, n=40))
     ply_path = str(tmp_path / "model.ply")
@@ -275,7 +275,7 @@ def test_render_cli_orbit(tiny_scene_dir, tmp_path, rng):
 
 
 def test_evaluate_cli(tiny_scene_dir, tmp_path):
-    from gaussiansplatting_tpu.tools import evaluate as eval_cli
+    from gaussiansplatting.tools import evaluate as eval_cli
 
     ply_path = str(tiny_scene_dir / "gt.ply")
     metrics = str(tmp_path / "eval.jsonl")
@@ -301,7 +301,7 @@ def test_bench_train_cli_smoke():
     import contextlib
     import io as _io
 
-    from gaussiansplatting_tpu.tools import bench_train
+    from gaussiansplatting.tools import bench_train
 
     buf = _io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -316,7 +316,7 @@ def test_bench_train_cli_smoke():
 
 
 def test_profiling_loop_time_ms_smoke():
-    from gaussiansplatting_tpu.utils.profiling import loop_time_ms
+    from gaussiansplatting.utils.profiling import loop_time_ms
 
     def f(x):
         return x * 1.0000001 + 1e-9
@@ -327,14 +327,14 @@ def test_profiling_loop_time_ms_smoke():
 
 def test_view_server_serves_frames(tmp_path, rng):
     """Interactive viewer (tools/view.py): page, state, and an on-demand
-    JPEG frame through the tiled pipeline (reference --view analog,
+    PNG frame through the tiled pipeline (reference --view analog,
     main.mm:231-297)."""
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
 
-    from gaussiansplatting_tpu.io import ply as ply_mod
-    from gaussiansplatting_tpu.tools import view as view_mod
+    from gaussiansplatting.io import ply as ply_mod
+    from gaussiansplatting.tools import view as view_mod
 
     cloud = ply_mod.cloud_from_params(_params(rng, n=40))
     ply_path = str(tmp_path / "model.ply")
@@ -357,11 +357,11 @@ def test_view_server_serves_frames(tmp_path, rng):
             f"http://127.0.0.1:{port}/state", timeout=30
         ).read())
         assert st["r"] > 0
-        jpg = urllib.request.urlopen(
+        png = urllib.request.urlopen(
             f"http://127.0.0.1:{port}/frame?az=0.5&el=0.2", timeout=120
         ).read()
-        assert jpg[:2] == b"\xff\xd8"  # JPEG SOI
-        assert len(jpg) > 500
+        assert png[:8] == b"\x89PNG\r\n\x1a\n"
+        assert len(png) > 500
     finally:
         srv.shutdown()
 
@@ -377,7 +377,7 @@ def test_view_server_interactive_training(tiny_scene_dir):
     import urllib.request
     from http.server import ThreadingHTTPServer
 
-    from gaussiansplatting_tpu.tools import view as view_mod
+    from gaussiansplatting.tools import view as view_mod
 
     args = argparse.Namespace(
         colmap=str(tiny_scene_dir / "sparse"),
@@ -400,10 +400,10 @@ def test_view_server_interactive_training(tiny_scene_dir):
         assert r["iteration"] == 3
         assert np.isfinite(r["loss"])
         assert r["num_gaussians"] > 0
-        jpg = urllib.request.urlopen(
+        png = urllib.request.urlopen(
             f"http://127.0.0.1:{port}/frame?az=0.3&el=0.2", timeout=120
         ).read()
-        assert jpg[:2] == b"\xff\xd8"
+        assert png[:8] == b"\x89PNG\r\n\x1a\n"
         # params actually advanced
         assert state.iteration == 3
         assert int(state.tstate.opt.t) == 3
@@ -413,10 +413,10 @@ def test_view_server_interactive_training(tiny_scene_dir):
 
 @pytest.mark.slow
 def test_train_cli_round3_flags(tiny_scene_dir, tmp_path):
-    """--payload-dtype bf16 / --pack-positions / --overflow-drop impact /
-    --scan-steps all plumb through the CLI into a working run."""
-    from gaussiansplatting_tpu.tools import train as train_cli
-    from gaussiansplatting_tpu.io import ply as ply_mod
+    """--overflow-drop impact / --scan-steps plumb through the CLI into a
+    working run."""
+    from gaussiansplatting.tools import train as train_cli
+    from gaussiansplatting.io import ply as ply_mod
 
     out_ply = str(tmp_path / "out3.ply")
     cfg_path = str(tmp_path / "cfg3.json")
@@ -433,8 +433,6 @@ def test_train_cli_round3_flags(tiny_scene_dir, tmp_path):
         "--config", cfg_path,
         "--capacity", "64",
         "--pair-capacity", "2048",
-        "--payload-dtype", "bf16",
-        "--pack-positions", "1",
         "--overflow-drop", "impact",
         "--scan-steps", "2",
     ])

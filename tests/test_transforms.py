@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from gaussiansplatting_tpu.core import transforms as T
+from gaussiansplatting.core import transforms as T
 
 
 def test_quat_to_rotmat_matches_scipy(rng):
@@ -113,9 +113,9 @@ def test_sh_degree1_render_gradient_reaches_band1(rng):
     (impossible in the reference: its backward only writes DC,
     tiled_shaders.metal:505-513)."""
     import jax
-    from gaussiansplatting_tpu.config import RasterConfig
-    from gaussiansplatting_tpu.core import gaussians as G
-    from gaussiansplatting_tpu.ops.rasterize import render
+    from gaussiansplatting.config import RasterConfig
+    from gaussiansplatting.core import gaussians as G
+    from gaussiansplatting.ops.rasterize import render
     from conftest import make_camera_for_scene, make_scene
 
     means, log_scales, quats, raw_op, sh_dc = make_scene(rng, n=24, spread=0.6)
