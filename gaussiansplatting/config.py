@@ -53,15 +53,13 @@ class RasterConfig(_Replaceable):
     # shaders.metal:58-61); 1 = view-dependent band-1 color, trainable.
     sh_degree: int = 0
     # Block-blend implementation: "auto" = the Pallas-Triton kernels on the
-    # GPU, the XLA scan elsewhere; "pallas" forces the kernels (GPU only);
-    # "pallas_interpret" runs them in the Pallas interpreter (tests);
-    # "xla" forces the checkpointed-scan path.
+    # GPU, the XLA scan elsewhere; "xla" forces the checkpointed-scan path.
     blend_impl: str = "auto"
     # Per-Gaussian gradient reduction (ops/pairs._pair_rows_bwd):
-    # "sortprefix" = sort cotangents by Gaussian id, then prefix-sum
-    # differences over the contiguous runs (deterministic on every
-    # backend); "scatter" = one fused duplicate-index scatter-add (on the
-    # GPU its atomic adds land in a run-dependent order).
+    # "sortprefix" = sort cotangents by Gaussian id, then a segmented scan
+    # over each contiguous run (deterministic on every backend); "scatter" =
+    # one fused duplicate-index scatter-add (on the GPU its atomic adds land
+    # in a run-dependent order).
     grad_reduce: str = "sortprefix"
     # Which Gaussians lose their pairs when the frame exceeds pair_capacity:
     # "index" reproduces the reference's write-cursor bounds check

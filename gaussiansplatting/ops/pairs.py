@@ -20,7 +20,7 @@ result functionally, at static shapes:
     materializes the aligned layout directly — no scatter;
   * the whole pipeline is wrapped in one custom VJP: the backward maps
     aligned-order cotangents to per-Gaussian sums either by sorting the
-    cotangents by Gaussian id and taking prefix-sum differences over the
+    cotangents by Gaussian id and taking a segmented scan over the
     now-contiguous runs (grad_reduce="sortprefix", deterministic) or by a
     single fused scatter-add (grad_reduce="scatter"), in place of the
     reference's relaxed float atomics (tiled_shaders.metal:698-736).
@@ -417,17 +417,25 @@ def reduce_aligned_cotangents(d_rows, gid_aligned, counts, n,
         return jnp.zeros((n, d), d_rows.dtype).at[
             jnp.where(gid_aligned >= 0, gid_aligned, n)
         ].add(d_rows.T, mode="drop")
-    # sortprefix: sort cotangents by Gaussian id, then per-Gaussian sums are
-    # prefix-sum differences over contiguous runs; endpoint lookups are
-    # N-index row gathers of an [a_cap, D] table
+    # sortprefix: sort cotangents by Gaussian id, then each Gaussian's sum is
+    # a segmented scan over its contiguous run, read at the run's end (an
+    # N-index row gather of an [a_cap, D] table).  The scan restarts at every
+    # run: differences of one global prefix sum would cancel catastrophically
+    # (at tens of millions of pairs the running sum's f32 rounding exceeds
+    # most Gaussians' whole gradient).
     key = jnp.where(gid_aligned >= 0, gid_aligned, n)
     s = jax.lax.sort((key,) + tuple(d_rows[j] for j in range(d)), num_keys=1)
-    sd = jnp.stack(s[1:], axis=-1)                    # [a_cap, D]
-    csum = jnp.concatenate(
-        [jnp.zeros((1, d), sd.dtype), jnp.cumsum(sd, axis=0)], axis=0
-    )
+    skey, sd = s[0], jnp.stack(s[1:], axis=-1)        # [a_cap], [a_cap, D]
+    start = jnp.concatenate([jnp.ones((1,), bool), skey[1:] != skey[:-1]])
+
+    def combine(a, b):
+        start_a, sum_a = a
+        start_b, sum_b = b
+        return start_a | start_b, jnp.where(start_b[:, None], sum_b, sum_a + sum_b)
+
+    _, incl = jax.lax.associative_scan(combine, (start, sd))
     ends = jnp.cumsum(counts)                         # [N] run ends (1-based)
-    return csum[ends] - csum[ends - counts]
+    return jnp.where((counts > 0)[:, None], incl[jnp.maximum(ends - 1, 0)], 0.0)
 
 
 def _pair_rows_bwd(cfg, res, cts):

@@ -186,8 +186,8 @@ def _call(kernel, name, cols, extra, out_shapes, cfg_consts, interpret):
     if not interpret and jax.default_backend() != "gpu":
         raise ValueError(
             "the Pallas-Triton blend compiles for the GPU only; on "
-            f"{jax.default_backend()!r} use blend_impl='xla' (tests may pass "
-            "interpret=True)"
+            f"{jax.default_backend()!r} the renderer takes the XLA blend "
+            "(tests may pass interpret=True)"
         )
     ts = int(cfg_consts[0])
     _check_shapes(cols, ts)

@@ -274,7 +274,6 @@ def render(
         out = block_blend_cols(
             mu_x, mu_y, c_a, c_bb, c_c, op_eff, col_r, col_g, col_b,
             (ts, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor),
-            cfg.blend_impl == "pallas_interpret",
         )                                                    # [NB, 4, P2]
         c_b, s_b = out[:, :3, :], out[:, 3, :]
     else:
@@ -292,12 +291,9 @@ def render(
 
 def _use_kernel(blend_impl: str) -> bool:
     """"auto" takes the Pallas-Triton blend on the GPU and the XLA scan
-    elsewhere; "pallas" always takes the kernel (it raises off the GPU);
-    "pallas_interpret" runs the kernel in the Pallas interpreter (tests)."""
+    elsewhere; "xla" always takes the scan."""
     if blend_impl == "auto":
         return jax.default_backend() == "gpu"
-    if blend_impl in ("pallas", "pallas_interpret"):
-        return True
     if blend_impl == "xla":
         return False
     raise ValueError(f"unknown blend_impl {blend_impl!r}")

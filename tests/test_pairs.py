@@ -194,7 +194,7 @@ def test_impact_overflow_drop_keeps_highest_impact(rng):
 
 
 @pytest.mark.slow
-def test_impact_drop_renders_and_differentiates(rng):
+def test_impact_drop_renders_and_differentiates(rng, blend_interpret):
     """The impact drop composes with the full render + VJP."""
     from gaussiansplatting.ops.rasterize import render
     from conftest import make_camera_for_scene
@@ -204,8 +204,7 @@ def test_impact_drop_renders_and_differentiates(rng):
     sh[:, 0, :] = sh_dc
     params = G.from_arrays(means, log_scales, quats, raw_op, sh)
     cam = make_camera_for_scene(width=64, height=48)
-    cfg = RasterConfig(pair_capacity=64, pair_block=16, blend_impl="pallas_interpret",
-                       overflow_drop="impact")
+    cfg = RasterConfig(pair_capacity=64, pair_block=16, overflow_drop="impact")
 
     def loss(p):
         img, aux = render(p, cam, cfg)
@@ -241,3 +240,30 @@ def test_chunk_slack_reduces_rows_and_trips_overflow_cleanly(rng):
     assert counts.sum() <= total
     if bool(tight[6]):
         assert counts.sum() < np.asarray(full[0]).sum()
+
+
+@pytest.mark.parametrize("layout", ["sorted", "shuffled"])
+@pytest.mark.parametrize("mode", ["sortprefix", "scatter"])
+def test_cotangent_reduction_is_exact_per_gaussian(mode, layout):
+    """Per-Gaussian cotangent sums carry only the f32 rounding of that
+    Gaussian's own terms: one Gaussian with ~1e4-sized cotangents over many
+    pairs must not swamp the ~1e-3-sized sums of the others (a difference
+    of global prefix sums loses them entirely)."""
+    rng = np.random.default_rng(7)
+    n, d = 6, 9
+    counts = np.array([4000, 3, 0, 17, 1, 250], np.int32)
+    gid = np.concatenate([np.full(c, g, np.int32) for g, c in enumerate(counts)])
+    gid = np.concatenate([gid, np.full(29, -1, np.int32)])      # padding slots
+    if layout == "shuffled":
+        gid = rng.permutation(gid)
+    scale = np.where(gid == 0, 1e4, 1e-3)
+    d_rows = (rng.normal(size=(d, gid.size)) * scale).astype(np.float32)
+    d_rows[:, gid < 0] = 1e6                                    # never counted
+    out = np.asarray(pairs_mod.reduce_aligned_cotangents(
+        jnp.asarray(d_rows), jnp.asarray(gid), jnp.asarray(counts), n, mode))
+    assert out.shape == (n, d)
+    x = d_rows.astype(np.float64)
+    for g in range(n):
+        ref = x[:, gid == g].sum(axis=1)
+        bound = 1e-6 * np.abs(x[:, gid == g]).sum(axis=1) + 1e-30
+        assert (np.abs(out[g] - ref) <= bound).all(), (g, out[g], ref)

@@ -1,8 +1,9 @@
 """Pallas-Triton block-blend kernels vs the XLA reference path.
 
-On the CPU the kernels run in the Pallas interpreter (interpret=True, the
-only place it is used); the ``gpu``-marked cases compile them for the card
-and run there (chip_smoke.py phase (b) runs them).
+On the CPU the kernels run in the Pallas interpreter (interpret=True, or
+the ``blend_interpret`` fixture for the render path); the ``gpu``-marked
+cases compile them for the card and run there (chip_smoke.py phase (b) runs
+them).
 
 Locks in: identical forward images, identical gradients for all five
 parameter groups, and the hand-derived replay backward against jax.grad of
@@ -33,11 +34,13 @@ def _params(rng, n=48):
     return G.from_arrays(means, log_scales, quats, raw_op, sh)
 
 
-def _cfgs(kernel="pallas_interpret"):
+def _cfgs():
+    """(XLA scan, kernel): "auto" is the kernel on the GPU and, under the
+    blend_interpret fixture, the kernel in the interpreter on the CPU."""
     kw = dict(pair_capacity=2048, pair_block=16)
     return (
         RasterConfig(**kw, blend_impl="xla"),
-        RasterConfig(**kw, blend_impl=kernel),
+        RasterConfig(**kw, blend_impl="auto"),
     )
 
 
@@ -124,17 +127,19 @@ def test_kernel_vjp_matches_autodiff(rng, block, cap_hit):
         assert rel < 1e-4, (name, rel)
 
 
-def test_forward_image_matches_xla(rng):
+def test_forward_image_matches_xla(rng, blend_interpret):
     params = _params(rng)
     cam = make_camera_for_scene(width=64, height=48)
     cfg_x, cfg_p = _cfgs()
     img_x, aux_x = jax.jit(render, static_argnums=2)(params, cam, cfg_x)
+    assert not blend_interpret
     img_p, aux_p = jax.jit(render, static_argnums=2)(params, cam, cfg_p)
+    assert blend_interpret                             # the kernel ran
     np.testing.assert_allclose(np.asarray(img_x), np.asarray(img_p), atol=2e-5)
     assert int(aux_x.num_pairs) == int(aux_p.num_pairs)
 
 
-def test_gradients_match_xla(rng):
+def test_gradients_match_xla(rng, blend_interpret):
     params = _params(rng)
     cam = make_camera_for_scene(width=64, height=48)
     cfg_x, cfg_p = _cfgs()
@@ -193,20 +198,25 @@ def test_auto_picks_xla_off_gpu():
     assert jax.default_backend() != "gpu"
     assert rasterize._use_kernel("auto") is False
     assert rasterize._use_kernel("xla") is False
-    assert rasterize._use_kernel("pallas_interpret") is True
-    with pytest.raises(ValueError, match="unknown blend_impl"):
-        rasterize._use_kernel("cuda")
+    # interpret mode is no config value: only tests pass interpret=True
+    for impl in ("pallas", "pallas_interpret", "cuda"):
+        with pytest.raises(ValueError, match="unknown blend_impl"):
+            rasterize._use_kernel(impl)
 
 
-def test_kernel_off_gpu_without_interpret_raises(rng):
+def test_kernel_off_gpu_without_interpret_raises(rng, monkeypatch):
     cols = _cols(rng, 2, 16, "sparse")
     with pytest.raises(ValueError, match="GPU only"):
         block_blend_cols(*cols, CONSTS)
+    # the renderer never asks for the interpreter: routed to the kernel off
+    # the GPU, it raises instead of silently interpreting
     params = _params(rng)
     cam = make_camera_for_scene(width=32, height=32)
-    _, cfg_p = _cfgs(kernel="pallas")
+    monkeypatch.setattr(rasterize, "_use_kernel", lambda impl: True)
+    jax.clear_caches()
     with pytest.raises(ValueError, match="GPU only"):
-        jax.jit(render, static_argnums=2)(params, cam, cfg_p)
+        jax.jit(render, static_argnums=2)(params, cam, _cfgs()[1])
+    jax.clear_caches()
 
 
 def test_kernel_rejects_non_power_of_two_block(rng):
@@ -244,7 +254,7 @@ def test_compiled_kernel_matches_xla(rng, block, cap_hit):
 def test_compiled_render_matches_xla(rng):
     params = _params(rng, n=512)
     cam = make_camera_for_scene(width=128, height=96)
-    cfg_x, cfg_p = _cfgs(kernel="pallas")
+    cfg_x, cfg_p = _cfgs()
     img_x, _ = jax.jit(render, static_argnums=2)(params, cam, cfg_x)
     img_p, _ = jax.jit(render, static_argnums=2)(params, cam, cfg_p)
     np.testing.assert_allclose(np.asarray(img_x), np.asarray(img_p), atol=1e-4)

@@ -190,8 +190,8 @@ def test_gradients_finite(rng):
 
 
 def test_grad_reduce_modes_agree(rng):
-    """All three per-Gaussian gradient reductions — the sort+prefix-diff
-    custom VJP (default), the fused scatter-add custom VJP, and plain
+    """All three per-Gaussian gradient reductions — the sort + segmented
+    scan custom VJP (default), the fused scatter-add custom VJP, and plain
     autodiff through the pair pipeline — produce the same gradients."""
     params, cam, cfg = _setup(rng, n=32)
     weights = jnp.asarray(

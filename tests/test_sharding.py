@@ -155,12 +155,12 @@ def test_sharded_loop_with_densify(rng):
     assert np.isfinite(np.asarray(st.params.means)).all()
 
 
-def test_sharded_step_with_pallas_blend(rng):
+def test_sharded_step_with_pallas_blend(rng, blend_interpret):
     """The Pallas custom-VJP blend traces through shard_map (interpret mode
     here; chip_smoke.py --devices 4 runs the same path compiled on four
     GPUs) and matches the XLA blend under the same sharding."""
     cfg = Config(raster=RasterConfig(
-        pair_capacity=2048, pair_block=16, blend_impl="pallas_interpret"
+        pair_capacity=2048, pair_block=16, blend_impl="auto"
     ))
     cam = make_camera_for_scene(width=64, height=64)
     gt_params = _params(rng)
@@ -170,6 +170,7 @@ def test_sharded_step_with_pallas_blend(rng):
     m = mesh_mod.make_mesh()
     sstep = make_sharded_train_step(m, cfg, 100)
     st, metrics = sstep(st, cam, gt)
+    assert blend_interpret                     # the kernel ran in the strips
     assert np.isfinite(float(metrics.loss))
 
     # and it matches the XLA blend under the same sharding
@@ -330,14 +331,14 @@ def test_batched_sharded_loop_with_densify(rng):
 
 
 @pytest.mark.slow
-def test_sharded_pallas_step_at_scale(rng):
+def test_sharded_pallas_step_at_scale(rng, blend_interpret):
     """Sharding x Pallas-blend composition one notch up: 512 Gaussians,
     256x256 image, 8 tile strips, every strip running the blend kernels
     (interpret mode on CPU) inside shard_map.  The sharded step must
     reproduce the single-device step, and the sharded render the
     full-frame render."""
     cfg = Config(raster=RasterConfig(
-        pair_capacity=1 << 14, pair_block=16, blend_impl="pallas_interpret",
+        pair_capacity=1 << 14, pair_block=16, blend_impl="auto",
     ))
     cam = make_camera_for_scene(width=256, height=256)  # 16 tile rows
     gt_params = _params(rng, n=512)

@@ -381,7 +381,7 @@ def test_scan_steps_loop_matches_single_dispatch(rng):
 
 
 @pytest.mark.slow
-def test_config4_feature_stack_integration(rng):
+def test_config4_feature_stack_integration(rng, blend_interpret):
     """The feature combination of a reference-scale run at toy scale: the
     Pallas blend (interpret mode here) + scanned dispatch + adaptive pairs +
     adaptive capacity + impact overflow drop + chunk slack, through densify
@@ -391,7 +391,7 @@ def test_config4_feature_stack_integration(rng):
     cfg = _cfg().replace(
         raster=RasterConfig(
             pair_capacity=1 << 12, pair_block=16,
-            blend_impl="pallas_interpret", overflow_drop="impact",
+            blend_impl="auto", overflow_drop="impact",
             chunk_slack=0.5,
         ),
         density=DensityConfig(
